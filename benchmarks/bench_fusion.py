@@ -6,11 +6,11 @@ reference materializes an [n_users x n_cand x n_feats] score tensor in
 host RAM — ~18 GB at 69,878 x 8,305 x 8 in float64, still 9.3 GB in
 float32 (reference old/methods/efusion.py:141-155 getScore loops) — and
 then full-argsorts every fused row (efusion.py doEvaluate). This repo
-streams per-user-chunk score stacks through VMEM into a masked top-k and
+streams per-user-chunk score stacks on the device into a masked top-k and
 never materializes the tensor anywhere.
 
 Sides:
-  * ``--side device``  (run on the TPU): time the streamed fused eval for
+  * ``--side device``  (on the accelerator): time the streamed fused eval for
     each of the five strategies (weights precomputed — the eval is the
     O(U·C·F) part) + the weight-learning passes.
   * ``--side ref``     (CPU): a chunked NumPy re-creation of the
@@ -21,23 +21,23 @@ Sides:
     count. This is favorable to the reference: its real scripts also pay
     python-loop walks and float64.
 
-Timing per CLAUDE.md: synced warmup, burned first block, async dispatch
-where device-side.
+Timing: synced warm-up, then timed calls.
 
 Usage:
   python benchmarks/bench_fusion.py --side ref      # CPU divisor
-  python benchmarks/bench_fusion.py --side device   # TPU (default)
+  python benchmarks/bench_fusion.py --side device   # accelerator (default)
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 N_USERS, N_ITEMS, N_CAND, F, K = 69_878, 10_380, 8_305, 8, 50
 
@@ -92,7 +92,7 @@ def run_device(args):
         rank_geometric_weights,
         svm_fusion_weights,
     )
-    from topk_rec_tpu.ops.topk_pallas import pack_candidate_bitmap
+    from topk_rec_tpu.ops.mask import pack_candidate_bitmap
 
     rng = np.random.default_rng(0)
     embeds = make_modalities(rng)

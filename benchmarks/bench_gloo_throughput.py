@@ -4,11 +4,9 @@ tests/_mp_worker.py proves cross-process correctness; this benchmark adds
 the missing numbers (VERDICT r3 Missing #1): wall-clock throughput of
 ``sharded_lookup`` / ``sharded_update`` and the explicit-exchange BPR
 chunk when every collective crosses a REAL process boundary (Gloo over
-localhost — the CPU stand-in for a 2-host DCN edge). Together with the
-HLO-validated byte models (benchmarks/comms_model.py) this bounds the
-cross-host overhead a pod owner would see: localhost Gloo is generous on
-bandwidth but pays the same per-collective latency stack
-(serialize/IPC/deserialize per exchange).
+localhost — the CPU stand-in for two hosts). Localhost Gloo is generous
+on bandwidth but pays the same per-collective latency stack
+(serialize/IPC/deserialize per exchange) as a link between hosts.
 
 Usage: python benchmarks/bench_gloo_throughput.py [--iters 30]
 Prints one RESULT line per process; process 0's numbers are the report.
@@ -95,12 +93,11 @@ def worker(pid: int, nproc: int, port: str, iters: int) -> None:
         return (time.time() - t0) / max(2, iters // 4)
 
     t_chunk = time_chunk("explicit")
-    # the GSPMD chunk over the same cross-process boundary: the byte
-    # model (comms_model.py) says it moves ~3.9x the explicit payload —
-    # this measures what that costs through a real Gloo edge
+    # the GSPMD chunk over the same cross-process boundary (it ships
+    # replicated-gather capacities, more than the explicit payload)
     t_gspmd = time_chunk("gspmd")
 
-    # payload accounting (the validated byte model, comms_model.py)
+    # payload accounting
     lookup_bytes = B * k * 4  # useful rows moved per lookup
     print(
         f"RESULT {pid} lookup_ms={t_lookup*1e3:.2f} "

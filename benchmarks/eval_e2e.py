@@ -1,11 +1,11 @@
 """End-to-end evaluate-CLI wall time: this framework vs the reference CLI.
 
 Generates a synthetic fold at full MovieLens scale (69,878 users x 10,380
-items, 4M positives, 8,305 im candidates) with random continuous
-embeddings, then times
+items, ~4M positives, 8,305 im candidates; the fold generator of
+chip_smoke.py) with random continuous embeddings, then times
 
   python /root/reference/evaluate.py -d D -m M -f 0 -sl im     (CPU NumPy)
-  python -m topk_rec_tpu.cli evaluate -d D -m M -f 0 -sl im    (TPU path)
+  python -m topk_rec_tpu.cli evaluate -d D -m M -f 0 -sl im    (device path)
 
 on the identical inputs, asserting the CSV outputs are byte-identical.
 The reference's hot path is a full np.argsort of the [69878 x 8305] score
@@ -13,7 +13,7 @@ matrix plus a per-user Python ranking walk (evaluate.py:81-108); ours is
 chunked device scoring + masked top-k. Both timings include process
 startup and data parsing (the honest CLI-to-CLI comparison).
 
-Usage: python benchmarks/eval_e2e.py  [--nnz 4000000]
+Usage: python benchmarks/eval_e2e.py  [--n-seen 4400000]
 Long runs can be split: --root DIR persists the generated fold and
 --only gen|ours|ref runs one phase (timings print per phase).
 """
@@ -32,48 +32,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 REFERENCE_CLI = "/root/reference/evaluate.py"
 
 
-def make_fold(root: str, n_users: int, n_items: int, nnz: int, n_cand: int,
-              k: int, seed: int = 0) -> str:
-    rng = np.random.default_rng(seed)
-    uids = [f"u{i}" for i in range(n_users)]
-    vids = [f"v{i}" for i in range(n_items)]
-    with open(os.path.join(root, "uid"), "w") as f:
-        f.write("\n".join(uids) + "\n")
-    with open(os.path.join(root, "vid"), "w") as f:
-        f.write("\n".join(vids) + "\n")
-    # training history: nnz positives, power-law-ish item skew
-    u = rng.integers(0, n_users, size=nnz)
-    i = (rng.zipf(1.3, size=nnz) - 1) % n_items
-    order = np.argsort(u, kind="stable")
-    u, i = u[order], i[order]
-    with open(os.path.join(root, "f0tr.txt"), "w") as f:
-        start = 0
-        while start < nnz:
-            stop = start
-            while stop < nnz and u[stop] == u[start]:
-                stop += 1
-            items = np.unique(i[start:stop])
-            f.write(
-                uids[u[start]]
-                + ","
-                + ",".join(f"{vids[x]}:1" for x in items)
-                + "\n"
-            )
-            start = stop
-    cand = rng.choice(n_items, size=n_cand, replace=False)
-    cand.sort()
-    with open(os.path.join(root, "f0te.im.idl"), "w") as f:
-        f.write("\n".join(vids[c] for c in cand) + "\n")
-    with open(os.path.join(root, "f0te.im.txt"), "w") as f:
-        for uu in range(0, n_users, 7):
-            liked = rng.choice(cand, size=3, replace=False)
-            f.write(
-                uids[uu] + "," + ",".join(f"{vids[x]}:1" for x in liked)
-                + "\n"
-            )
-    # random continuous embeddings (ties would be rank-ambiguous)
+def make_fold(root: str, n_users: int, n_items: int, n_seen: int,
+              n_cand: int, k: int, seed: int = 0) -> str:
+    """Fold 0 in the reference formats plus random continuous
+    ``final-U/V.dat`` (ties would be rank-ambiguous) under ``root/model``."""
+    from chip_smoke import Shape, make_fold as write_fold
     from topk_rec_tpu.data.io import write_dat
 
+    write_fold(root, Shape(n_users=n_users, n_items=n_items, n_seen=n_seen,
+                           n_im=n_cand, k=k), seed)
+    rng = np.random.default_rng(seed)
     mdir = os.path.join(root, "model")
     os.makedirs(mdir)
     write_dat(os.path.join(mdir, "final-U.dat"),
@@ -95,7 +63,7 @@ def run_timed(cmd, env=None):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--nnz", type=int, default=4_000_000)
+    ap.add_argument("--n-seen", type=int, default=4_400_000)
     ap.add_argument("--n-users", type=int, default=69878)
     ap.add_argument("--n-items", type=int, default=10380)
     ap.add_argument("--n-cand", type=int, default=8305)
@@ -111,9 +79,10 @@ def main():
     try:
         if args.only in (None, "gen"):
             os.makedirs(root, exist_ok=True)
-            print(f"generating fold ({args.nnz:,} positives)...", flush=True)
+            print(f"generating fold ({args.n_seen:,} browsed pairs)...",
+                  flush=True)
             t0 = time.time()
-            make_fold(root, args.n_users, args.n_items, args.nnz,
+            make_fold(root, args.n_users, args.n_items, args.n_seen,
                       args.n_cand, args.k)
             print(f"generated in {time.time() - t0:.1f} s", flush=True)
             if args.only == "gen":
@@ -127,7 +96,7 @@ def main():
             "-d", root, "-m", mdir, "-f", "0", "-sl", "im",
         ]
         if args.only in (None, "ours"):
-            print("running this framework (TPU)...", flush=True)
+            print("running this framework (device path)...", flush=True)
             t_ours, line_ours = run_timed(ours_cmd)
             print(f"ours (cold): {t_ours:8.1f} s  {line_ours}", flush=True)
             t_ours2, _ = run_timed(ours_cmd)

@@ -1,8 +1,6 @@
 """Mint the reference's missing ALS timing baselines (CPU, MovieLens scale).
 
-BASELINE.md had a CPU divisor for BPR only; the WMF/CER TPU iteration
-times had no reference number against them (VERDICT r2 missing #3).
-This times the reference's actual computation — 69,878 sequential
+The reference publishes no ALS timings. This times the reference's actual computation — 69,878 sequential
 per-user k x k host solves + 10,380 per-item solves per sweep
 (reference single/wmf.py:70-97), and for CER additionally the d x d
 ridge E-solve at the reference's d=20000 (reference single/cer.py:27,64)
@@ -12,18 +10,19 @@ Usage:
   python benchmarks/reference_als_baseline.py [--iters 2] [--d 20000]
         [--models wmf,cer]
 
-Prints per-iteration wall times; recorded in BASELINE.md.
+Prints per-iteration wall times on the host CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo/benchmarks")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 
 def movielens_scale_interactions(seed=0, n_users=69878, n_items=10380,

@@ -1,6 +1,6 @@
 """Mint the reference's missing performance baseline on CPU.
 
-The reference repo publishes no benchmark numbers (BASELINE.md); its BPR
+The reference repo publishes no benchmark numbers; its BPR
 trains with a per-element Python rejection sampler feeding a TF1 session
 one 256-sample batch at a time (reference single/bpr.py:103-165). TF1 is
 not installable here, so this re-implements the exact same computation in
@@ -16,8 +16,8 @@ The NumPy update path is, if anything, faster than TF1 feed_dict
 sess.run round trips, so the minted number is a *favorable* baseline.
 
 Usage: python benchmarks/reference_baseline.py [--samples 100000]
-Prints samples/sec; the figure is recorded in BASELINE.md and used as
-``vs_baseline`` in bench.py.
+Prints samples/sec; bench.py's ``vs_baseline`` divides by the figure
+this script printed on its host CPU (REFERENCE_CPU_SAMPLES_PER_SEC).
 """
 
 from __future__ import annotations

@@ -22,8 +22,8 @@ defaults), cited line-by-line:
     closed-form d×d ridge E-solve, and the cold-start writeback).
 
 These run on CPU at whatever scale the harness picks; they are the
-"reference side" of benchmarks/accuracy_parity.py and the timing
-divisor for the ALS rows in BASELINE.md.
+"reference side" of benchmarks/accuracy_parity.py and of
+benchmarks/reference_als_baseline.py.
 """
 
 from __future__ import annotations

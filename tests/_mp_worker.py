@@ -3,7 +3,7 @@
 Each process contributes 2 virtual CPU devices; after
 ``jax.distributed.initialize`` the global mesh has 4 devices spanning both
 processes, and the distributed trainers / fused ALS sweep run on it with
-Gloo collectives over localhost — the CPU stand-in for a 2-host TPU slice
+Gloo collectives over localhost — the CPU stand-in for two hosts
 (SURVEY.md §4 multi-host test strategy).
 
 Prints one machine-readable RESULT line; the parent test asserts both

@@ -1,7 +1,7 @@
 """Trained-accuracy parity vs the reference's math, asserted in CI.
 
 Scaled-down version of benchmarks/accuracy_parity.py (whose full 3-seed
-run minted the BASELINE.md parity table): train the reference-exact NumPy
+run is in benchmarks/accuracy_parity_results*.json): train the reference-exact NumPy
 trainers AND this framework's models on one synthetic structured fold,
 evaluate BOTH through the untouched reference CLI, and assert the
 accuracy@10/30 deltas stay within run-variance bounds. Slow-marked
@@ -54,7 +54,7 @@ def test_trained_accuracy_matches_reference(parity_fold, model, tmp_path):
             r = got["ref"][s][metric]
             o = got["ours"][s][metric]
             # single-seed bound: |Δ| within max(0.02 abs, 25% rel) —
-            # the 3-seed full-scale run (BASELINE.md) pins ±1σ deltas
+            # the 3-seed full-scale run pins ±1σ deltas
             assert abs(o - r) <= max(0.02, 0.25 * r), (
                 model, s, metric, r, o
             )

@@ -473,33 +473,18 @@ def test_recommend_cli(fold_dir, tmp_path, capsys):
     assert "unknown user" in capsys.readouterr().err
 
 
-def test_evaluate_engine_pallas_identical(fold_dir, tmp_path, capsys):
-    """--engine pallas must produce byte-identical CSV to the default
-    xla engine (the fused kernel is exact, ties included)."""
-    import numpy as np
-
-    from topk_rec_tpu.data import load_id_map
-    from topk_rec_tpu.data.io import write_dat
-
-    uids = load_id_map(str(fold_dir) + "/uid")
-    iids = load_id_map(str(fold_dir) + "/vid")
-    rng = np.random.default_rng(21)
-    mdir = tmp_path / "m2"
-    mdir.mkdir()
-    write_dat(str(mdir / "final-U.dat"),
-              rng.normal(size=(len(uids), 6)).astype(np.float32))
-    write_dat(str(mdir / "final-V.dat"),
-              rng.normal(size=(len(iids), 6)).astype(np.float32))
-    outs = {}
-    for engine in ("xla", "pallas"):
-        rc = main([
-            "evaluate", "-d", str(fold_dir), "-m", str(mdir), "-f", "0",
-            "-sl", "im", "--engine", engine,
-        ])
-        assert rc == 0
-        outs[engine] = capsys.readouterr().out
-    assert outs["xla"] == outs["pallas"]
-    assert outs["xla"].startswith("im,")
+@pytest.mark.parametrize("argv", [
+    ["evaluate", "--engine", "pallas"],
+    ["recommend", "--method", "pallas"],
+    ["recommend", "--method", "hybrid"],
+])
+def test_removed_kernel_options_rejected(fold_dir, tmp_path, argv, capsys):
+    """The fused top-k kernels are gone: their switches are usage errors
+    (argparse exit code 2), not silently ignored."""
+    with pytest.raises(SystemExit) as ei:
+        main([argv[0], "-d", str(fold_dir), "-m", str(tmp_path), *argv[1:]])
+    assert ei.value.code == 2
+    assert argv[-1] in capsys.readouterr().err
 
 
 def test_console_entry_point_declared():

@@ -114,36 +114,6 @@ def test_device_no_bias_matches_with_zero_bias():
     np.testing.assert_array_equal(a.hits, b.hits)
 
 
-def test_pallas_eval_path_matches_xla():
-    """use_pallas=True must produce identical metrics to the XLA path."""
-    rng = np.random.default_rng(11)
-    n_users, n_items, dim = 70, 90, 8
-    U = rng.normal(size=(n_users, dim)).astype(np.float32)
-    V = rng.normal(size=(n_items, dim)).astype(np.float32)
-    bias = rng.normal(size=n_items).astype(np.float32)
-    cand_ids = rng.choice(n_items, size=50, replace=False).astype(np.int64)
-    n_words = (n_items + 31) // 32
-    seen_bm = np.zeros((n_users, n_words), dtype=np.uint32)
-    seen_dense = rng.random((n_users, n_items)) < 0.25
-    for u, i in zip(*np.nonzero(seen_dense)):
-        seen_bm[u, i >> 5] |= np.uint32(1) << np.uint32(i & 31)
-    likes = {
-        u: list(rng.choice(50, size=3, replace=False))
-        for u in range(0, n_users, 2)
-    }
-    V_cand = V[cand_ids]
-    b_cand = bias[cand_ids]
-    xla = evaluate_scores_device(
-        U, V_cand, b_cand, seen_bm, cand_ids, likes, user_chunk=33,
-    )
-    pallas = evaluate_scores_device(
-        U, V_cand, b_cand, seen_bm, cand_ids, likes, user_chunk=33,
-        use_pallas=True,
-    )
-    np.testing.assert_array_equal(pallas.hits, xla.hits)
-    assert pallas.count == xla.count
-
-
 def test_want_rr_false_skips_rr_but_keeps_hits():
     rng = np.random.default_rng(7)
     U = rng.normal(size=(12, 4)).astype(np.float32)

@@ -260,8 +260,8 @@ def test_explicit_exchange_matches_gspmd(small_inter):
 
 
 def test_bpr_trainer_exchange_auto_single_process(small_inter):
-    """exchange='auto' resolves to gspmd in a single process (ICI-scale
-    mesh) and to a valid mode object either way."""
+    """exchange='auto' resolves to gspmd in a single process and to a
+    valid mode object either way."""
     import numpy as np
 
     from topk_rec_tpu.models import BPR

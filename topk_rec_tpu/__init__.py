@@ -1,16 +1,16 @@
-"""topk_rec_tpu — a TPU-native top-k recommendation framework.
+"""topk_rec_tpu — a top-k recommendation framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capability set of the
+A from-scratch JAX/XLA re-design of the capability set of the
 ``domainxz/top-k-rec`` reference (see SURVEY.md): BPR / VBPR pairwise-ranking
 matrix factorization, WMF weighted-ALS, CER collaborative embedding
 regression, DPM neural-encoder alternation, score-level fusion, and the
-in-matrix / out-of-matrix accuracy@k evaluation protocol — all built
-TPU-first (device-side sampling, batched MXU ALS solves, fused
-scoring+top-k kernels, mesh-sharded embedding tables).
+in-matrix / out-of-matrix accuracy@k evaluation protocol — all run on the
+accelerator (device-side sampling, blocked batched ALS solves, chunked
+scoring + masked top-k, mesh-sharded embedding tables).
 
 Layout:
   data/      id vocabularies, ratings parsing, .dat interchange IO, datasets
-  ops/       device ops: triplet sampling, batched ALS, scoring, top-k kernels
+  ops/       device ops: triplet sampling, batched ALS, seen-item masks
   models/    BPR, VBPR, WMF, CER, DPM + content encoders
   eval/      NumPy oracle protocol + on-device evaluator
   fusion/    late score-fusion strategies (average/rank/error/svm/bpr)

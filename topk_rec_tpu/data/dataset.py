@@ -1,7 +1,7 @@
 """In-memory interaction dataset with device-friendly derived layouts.
 
 The reference keeps training data as Python dicts of lists
-(single/bpr.py:167-171, single/wmf.py:32-54). For TPU execution we need
+(single/bpr.py:167-171, single/wmf.py:32-54). Device execution needs
 static-shape array layouts instead:
 
 * CSR neighbor lists (user->positives and item->positives) for sampling and

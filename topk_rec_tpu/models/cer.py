@@ -5,7 +5,7 @@ a content projection E ∈ R^{d×k} coupling item latents to features F, the
 closed-form ridge update E = (lv·FᵀF + le·I)⁻¹ · lv·Fᵀ·V, and cold-start
 writeback fie[j] = (F·E)[j] for unrated items (cer.py:70-73).
 
-TPU-native changes:
+Changes from the reference:
 * item solves carry the content prior in the RHS inside the batched block
   kernel (ops/als.py ``prior=``), covering the reference's separate
   rated/unrated branches (cer.py:49-63) in one formula;
@@ -53,8 +53,8 @@ def _ridge_woodbury_cg(
     """E = lv·Fᵀ·(le·I_n + lv·G)⁻¹·Y with G = F·Fᵀ precomputed.
 
     The n×n system is solved by conjugate gradients (matvec = one n×n·n×k
-    matmul on the MXU) — dense LU/Cholesky factorizations lower to scalar
-    loops on TPU and are orders of magnitude slower at n ≈ 10⁴. The ridge
+    matmul) instead of a dense factorization; which is faster on H100 is
+    not measured (ROADMAP D3). The ridge
     term le·I dominates the spectrum at the reference's le=1e4, so CG
     converges in a handful of iterations; a ``while_loop`` exits as soon
     as every column's relative residual drops below ``tol``.
@@ -104,9 +104,8 @@ def _ridge_woodbury_cg(
 def _ridge_woodbury_direct(
     F: jax.Array, G: jax.Array, Y: jax.Array, lv: float, le: float
 ) -> jax.Array:
-    """Direct n×n fallback for the Woodbury form (slow on TPU — LU lowers
-    to scalar loops — but exact; only reached when CG reports
-    non-convergence)."""
+    """Direct n×n fallback for the Woodbury form (exact; only reached
+    when CG reports non-convergence)."""
     n = G.shape[0]
     A = le * jnp.eye(n, dtype=jnp.float32) + lv * G
     return lv * jnp.dot(

@@ -65,9 +65,9 @@ class DPM(WMF):
         ``fit_batch`` overrides the encoder's SGD minibatch size for the
         per-iteration fit sweep. The reference uses 64 (mlp.py:34), which
         makes the fit ~162 sequential scan steps per iteration at
-        MovieLens scale — the dominant share of the DPM iteration
-        (benchmarks/probe_dpm_iteration.py --decompose). ``fit_batch=1024``
-        is the measured fast mode (~10 steps/sweep); its accuracy trade
+        MovieLens scale (its share of the iteration is not measured on
+        H100). ``fit_batch=1024`` is the fast mode (~10 steps/sweep);
+        its accuracy trade
         vs the batch-64 reference alternation, measured over 3 seeds
         through the untouched reference CLI (accuracy_parity.py --models
         dpm_fast, 2026-08-21): in-matrix acc@30 0.1086±0.0009 vs ref

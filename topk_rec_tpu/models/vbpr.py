@@ -1,4 +1,4 @@
-"""VBPR: content-aware pairwise ranking (visual/meta BPR), TPU-native.
+"""VBPR: content-aware pairwise ranking (visual/meta BPR).
 
 Same model as the reference's VBPR (reference single/vbpr.py): the latent
 dimension splits into k/2 rating factors + k/2 content factors; items
@@ -6,7 +6,7 @@ contribute a learned projection of their content features
 (iceb = F[i]·cem) and a content bias (F[i]·icb); the pairwise objective and
 l2/l1 regularization mirror vbpr.py:59-75.
 
-TPU-native structure matches our BPR (device sampling, lax.scan over many
+The device structure matches our BPR (device sampling, lax.scan over many
 steps per launch, sparse-masked RMSProp for the embedding tables) with two
 dense parameters (cem ∈ R^{d×k/2}, icb ∈ R^d) updated with dense RMSProp —
 the reference feeds raw [batch, d] feature rows through feed_dict each step

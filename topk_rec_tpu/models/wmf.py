@@ -3,7 +3,7 @@
 Same objective as the reference's WMF (reference single/wmf.py:61-101):
 confidence-weighted squared loss with positive weight ``a`` and background
 weight ``b``, L2 priors lu/lv, solved by alternating least squares. The
-reference's per-entity host solves become blocked MXU matmuls + batched
+reference's per-entity host solves become blocked matmuls + batched
 k×k solves (ops/als.py).
 
 Note: the reference's plain ``WMF.train`` crashes as written (it calls

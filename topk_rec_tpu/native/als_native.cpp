@@ -1,6 +1,6 @@
 // Native CPU weighted-ALS solver: golden reference + host fallback.
 //
-// The TPU-native equivalent of the reference's GSL collaborative-regression
+// The host equivalent of the reference's GSL collaborative-regression
 // solver (old/cr/cr.cpp:71-326): confidence-weighted normal equations with
 // the a/b background trick and an optional content prior, solved per entity
 // with a dense Cholesky factorization (k <= a few hundred). Used to

@@ -56,7 +56,7 @@ def _sample_triplets(
     ku, ki, kj, kfix = jax.random.split(key, 4)
     uidx = jax.random.randint(ku, (batch_size,), 0, user_rows.shape[0])
     # one [B,3] row gather for (user id, CSR start, degree) instead of
-    # three scalar gathers — TPU gather cost is per-index, not per-byte
+    # three scalar gathers
     rows = user_rows[uidx]
     u = rows[:, 0]
     r = jax.random.randint(ki, (batch_size,), 0, rows[:, 2])

@@ -78,8 +78,8 @@ def planned_rows(
     needs per-unique-row parameter/accumulator rows. Gathering occurrences
     and uniques separately reads the HBM table twice per step; instead,
     gather only the unique rows here and expand to occurrences locally
-    (``rows[seg]`` — a gather from a batch-sized VMEM-resident array, not
-    from the HBM table).
+    (``rows[seg]`` — a gather from a batch-sized array, not from the
+    full table in device memory).
     """
     return (
         table.at[uniq].get(mode="fill", fill_value=0.0),

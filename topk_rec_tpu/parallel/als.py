@@ -12,12 +12,11 @@ are broadcast.
 
 The whole half-sweep — every block — runs as ONE compiled ``lax.scan``
 device program (the same fused sweep as the single-device path,
-ops/als.py ``_sweep_impl``): there are no per-block host round trips, so
-on a real pod behind a tunnel latency is paid once per sweep, not once per
-block.
+ops/als.py ``_sweep_impl``): there are no per-block host round trips.
 
-This is the TPU-pod analog of the reference's single-process GSL solver
-loop (old/cr/cr.cpp:146-216): same math, entity-parallel across chips.
+This is the multi-device analog of the reference's single-process GSL
+solver loop (old/cr/cr.cpp:146-216): same math, entity-parallel across
+devices.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
 """Multi-process (multi-host) execution support.
 
 The reference is strictly single-process (SURVEY.md §2.4); this is the
-greenfield TPU-pod path: each host runs one process, ``initialize`` joins
-them through JAX's coordination service, and every mesh built from
+greenfield multi-host path: each host runs one process, ``initialize``
+joins them through JAX's coordination service, and every mesh built from
 ``jax.devices()`` afterwards is a GLOBAL mesh — NamedSharding placements
-and jit-compiled collectives then span hosts (ICI within a slice, DCN
-across slices) with no further code changes. The distributed trainers and
+and jit-compiled collectives then span hosts with no further code
+changes. The distributed trainers and
 the fused distributed ALS sweep (parallel/train_step.py, parallel/als.py)
 run unmodified on such meshes; only host-side reads need ``fetch`` (a
 replicate-to-all collective) because shards on other hosts are not
 addressable locally.
 
-Tested without TPU pods via two CPU processes with virtual devices
+Tested without several hosts via two CPU processes with virtual devices
 (tests/test_multiprocess.py — Gloo collectives over localhost), per the
 SURVEY §4 multi-host test strategy.
 """
@@ -37,7 +37,6 @@ def initialize(
     Thin wrapper over ``jax.distributed.initialize`` with env-var
     fallbacks (``TKR_COORDINATOR`` / ``TKR_NUM_PROCESSES`` /
     ``TKR_PROCESS_ID``) so launchers can configure workers without code.
-    On TPU pod slices all three are auto-detected and may be omitted.
     Must run before the backend initializes (i.e. before any jax op).
     """
     coordinator_address = coordinator_address or os.environ.get(
@@ -64,7 +63,7 @@ def fetch(arr) -> np.ndarray:
 
     Single-process / fully-addressable arrays copy directly. A global
     array with shards on other hosts is first replicated across the mesh
-    (one XLA all-gather riding ICI/DCN), after which every process holds
+    (one XLA all-gather), after which every process holds
     the full value and can read it locally.
     """
     if isinstance(arr, np.ndarray):

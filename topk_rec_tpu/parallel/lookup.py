@@ -1,8 +1,8 @@
 """Explicit all-to-all embedding lookup AND update over row-sharded tables.
 
 The distributed trainers lean on GSPMD to turn `table[idx]` into
-collective gathers, which is optimal on a single slice. On multi-host
-pods the production pattern is an EXPLICIT exchange — deduplicate the
+collective gathers. Across hosts the parameter-server pattern is an
+EXPLICIT exchange instead — deduplicate the
 indices each device needs, route each unique index to the shard that
 owns the row (fixed per-destination capacity so shapes stay static),
 gather locally, route the rows back — the parameter-server step rebuilt

@@ -1,16 +1,17 @@
 """Device meshes and sharding helpers.
 
 The reference is strictly single-process / single-device (SURVEY.md §2.4);
-multi-chip execution is a greenfield component here, built the TPU way:
-a ``jax.sharding.Mesh`` with a data axis (batch) and a model axis
+multi-device execution is a greenfield component here: a
+``jax.sharding.Mesh`` with a data axis (batch) and a model axis
 (embedding-table rows), ``NamedSharding`` annotations on the tables, and
-XLA-inserted collectives over ICI — no hand-written NCCL/MPI analog.
+XLA-inserted collectives (NCCL on GPUs) — no hand-written
+communication.
 
 Mesh convention:
   * axis "dp": data parallel — triplet batches are split across it.
   * axis "mp": model parallel — user/item embedding tables are row-sharded
     across it; gathers/scatters on sharded tables become XLA collective
-    gathers (riding ICI on real slices).
+    gathers.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Distributed training/scoring steps over a (dp, mp) mesh.
 
-TPU-native scaling for the pairwise-SGD family (greenfield vs the
+Multi-device scaling for the pairwise-SGD family (greenfield vs the
 single-device reference — SURVEY.md §2.4): embedding tables row-sharded
 over the "mp" axis (NamedSharding P('mp', None)), triplet batches sharded
 over "dp", jit-compiled with explicit in/out shardings so XLA GSPMD
 inserts the collectives (gathers across table shards, psum of
-replicated-parameter gradients) over ICI. This is the scaling-book
+replicated-parameter gradients). This is the scaling-book
 recipe: pick a mesh, annotate shardings, let XLA place collectives.
 
 The distributed trainers compile THE SAME chunk bodies as the single-chip
@@ -72,8 +72,8 @@ class _DistributedPairwiseTrainer:
         # membership store, built straight from the HOST array into the
         # row-sharding (row-sharding over "mp" divides its footprint by
         # the shard count: 12.5 GB at 1M users x 100K items ->
-        # 1.6 GB/chip on a v5e-8, re-fitting scales where a single chip
-        # needs the sorted-CSR store; a sharded sorted store would add
+        # 1.6 GB/device on 8 devices, re-fitting scales where a single
+        # device needs the sorted-CSR store; a sharded sorted store would add
         # an all-to-all to every probe for no footprint win). Building
         # from model.inter.pos_bitmap (host) rather than the sampler's
         # device copy (a) works for sorted/auto models that never built
@@ -132,26 +132,24 @@ class DistributedBPRTrainer(_DistributedPairwiseTrainer):
     Two communication modes (SURVEY §2.4 "lookup/update via all-to-all"):
 
     * ``exchange="gspmd"`` (default): batch over "dp", the chunk body's
-      table gathers/scatters become GSPMD-inserted collectives — optimal
-      within an ICI-connected slice.
+      table gathers/scatters become GSPMD-inserted collectives.
     * ``exchange="explicit"``: batch split over "mp"; every step's row
       gathers run through the deduplicated all-to-all lookup and every
       update routes summed gradients back to the owning shard where ONE
       RMSProp step applies per touched row (parallel/lookup.py
       ``_exchange`` / ``_exchange_rmsprop``) — the parameter-server
-      pattern for pod-scale tables where requests must ride explicit
-      DCN-friendly exchanges. Numerically equivalent to the GSPMD mode
+      pattern, which ships only deduplicated owner traffic. Numerically
+      equivalent to the GSPMD mode
       (same sampled triplets, same per-row summed gradients, same
       planned-RMSProp semantics; tests/test_parallel.py asserts it).
       Per-chunk overflow counts (uniques dropped by the fixed
       ``capacity``) are accumulated in ``last_overflow``.
     * ``exchange="auto"``: explicit when the mesh spans multiple
-      PROCESSES and is pure-mp (the HLO comms audit showed GSPMD ships
-      full-batch replicated-gather capacities to every device — 3.9× the
-      explicit path's deduped owner traffic at batch 8192, which matters
-      on a DCN edge; BASELINE.md "Projected multi-chip scaling"), GSPMD
-      otherwise (on one ICI-connected host both are µs-scale and GSPMD
-      supports dp×mp meshes).
+      PROCESSES and is pure-mp (GSPMD ships full-batch replicated-gather
+      capacities to every device, several times the explicit path's
+      deduplicated owner traffic, and the link between hosts is the
+      slow one), GSPMD otherwise (it also supports dp×mp meshes). The
+      choice is not yet measured on H100 (ROADMAP D4).
     """
 
     PARAM_SPECS = BPR_PARAM_SPECS
@@ -430,9 +428,8 @@ def distributed_scores_topk(
 
     U rows sharded over "dp", V rows over "mp": each device holds a
     [n_users/dp, n_items/mp] tile of U·Vᵀ; ``lax.top_k`` runs on the full
-    row after XLA all-gathers tiles along "mp" (at this k the gather of
-    [rows, n_items] scores is the bandwidth-optimal choice; a ring
-    partial-top-k merge is the Pallas-kernel variant, ops/topk_pallas.py).
+    row after XLA all-gathers tiles along "mp" (a per-tile partial top-k
+    merged across "mp" would move fewer bytes; not implemented).
     """
     u_shard = NamedSharding(mesh, P("dp", None))
     v_shard = NamedSharding(mesh, P("mp", None))

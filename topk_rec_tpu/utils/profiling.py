@@ -16,7 +16,7 @@ from typing import Iterator, Optional
 def profile_trace(log_dir: Optional[str]) -> Iterator[None]:
     """Capture a jax.profiler trace into ``log_dir`` (no-op when None).
 
-    View with TensorBoard or xprof; works on TPU and CPU backends.
+    View with TensorBoard or xprof; works on every JAX backend.
     """
     if log_dir is None:
         yield
